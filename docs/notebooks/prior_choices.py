@@ -58,7 +58,8 @@ print('wrote', os.path.join(OUT, 'priors_model.png'))
 #
 # * `sig_x ~ Gamma(26, 0.15)` concentrates daily flight spread near
 #   ~170 m with a tail to ~330 m — this sets the static kernel-window
-#   size the TPU build must cover (bayes/model.prior_coverage_windows).
+#   size every compiled likelihood must cover
+#   (bayes/model.prior_coverage_windows).
 # * `lam ~ Beta(5, 1)` leans toward most wasps attempting flight.
 # * `n_periods ~ Poisson(30)` is the discrete flight-duration slot — the
 #   AM sampler rounds it in proposals; NUTS either fixes it at 30 (as the

@@ -4,7 +4,7 @@
 // algorithm for rectangular bivariate normal probabilities — the role the
 // reference fills with Alan Genz's Fortran MVNDST reached through
 // scipy.stats.mvn.mvnun (ParasitoidModel.py:22,340; removed from modern
-// SciPy).  The TPU compute path never calls this (ops/bvn.py integrates
+// SciPy).  The device compute path never calls this (ops/bvn.py integrates
 // on-device); this library serves host tooling: the high-precision oracle
 // behind the device integrator's tests, the reference-oracle shim used for
 // parity testing, and fast host-side kernel previews (viz/explore.py).

@@ -293,16 +293,15 @@ class BayesSetup:
     def with_batched_bvn(self):
         """Shallow copy whose forward simulations use the ensemble-batched
         BVN scheme (ops/bvn.bvn_cell_masses_batched: fixed-G two-branch
-        select instead of the rho ``lax.switch``, XLA scatter path instead
-        of Pallas) — the kernel configuration a particle-``vmap``
+        select instead of the rho ``lax.switch``) — the kernel
+        configuration a particle-``vmap``
         (bayes/ensemble.py) needs so a batched program executes two BVN
         branch bodies instead of all four.  The copy is a distinct jit
         cache key; single-particle use of it is a pessimization."""
         import copy
         new = copy.copy(self)
         new.setup = self.setup._replace(
-            kcfg=self.setup.kcfg._replace(batched_bvn=True, pallas=False,
-                                          interpret=False))
+            kcfg=self.setup.kcfg._replace(batched_bvn=True))
         return new
 
     # ------------------------------------------------------------------

@@ -229,7 +229,8 @@ def _mcmc_step(setup: BayesSetup, state: ChainState, cfg: MCMCConfig,
     # ---- model block update (full forward sim) ----------------------
     chol = _proposal_chol(state, cfg.adapt_start)
     eps = random.normal(k_prop, (_N_MODEL,))
-    m_prop_vec = state.m + chol @ eps
+    m_prop_vec = state.m + jnp.matmul(chol, eps,
+                                      precision=lax.Precision.HIGHEST)
     m_prop_vec = m_prop_vec.at[_DISCRETE_IDX].set(
         jnp.round(m_prop_vec[_DISCRETE_IDX]))
     m_prop = _as_model(m_prop_vec)

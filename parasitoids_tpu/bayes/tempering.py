@@ -1,4 +1,4 @@
-"""Replica-exchange MCMC (parallel tempering) over a TPU mesh.
+"""Replica-exchange MCMC (parallel tempering) over a device mesh.
 
 Beyond-reference capability: the reference's PyMC AdaptiveMetropolis runs a
 single chain on the posterior (Bayes_Run.py:484-487) and can stall in a

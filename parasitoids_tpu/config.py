@@ -24,8 +24,8 @@ class Params:
 
     Class-level flags are shared across instances, as in the reference
     (Run.py:36-39).  ``CUDA`` is kept for config compatibility but simply
-    means "use the accelerator" — on this stack the accelerator path is the
-    default jitted TPU path and the flag is ignored by the solver.
+    means "use the accelerator" — on this stack the jitted program runs on
+    whatever device JAX selects, and the flag is ignored by the solver.
     """
 
     OUTPUT = True
@@ -67,11 +67,11 @@ class Params:
         self.maps_service = 'Google'
 
         # retained for config compatibility with the reference's
-        # multiprocessing threshold (Run.py:91); the TPU build vmaps per-day
+        # multiprocessing threshold (Run.py:91); this build vmaps per-day
         # kernel construction so this has no effect on execution.
         self.min_ndays = 6
 
-        ### TPU-specific numerics (no reference equivalent)
+        ### numerics of this build (no reference equivalent)
         # half-width (cells) of the static per-minute kernel window; the
         # reference grows its window adaptively (ParasitoidModel.py:348).
         # None = auto-size from the run's Dparams (~4 sigma, the static
@@ -82,9 +82,6 @@ class Params:
         self.kernel_rad_local = None
         # Gauss-Legendre nodes per cell column for BVN cell integration
         self.quad_nodes = 16
-        # fused Pallas day-accumulate kernel: None = auto (on for TPU),
-        # True/False to force (CLI: use_pallas=True/False)
-        self.use_pallas = None
         # run the forward model in float64 for numerical validation
         # (SURVEY.md section 7 step 3: "f64 flag for validation"); the
         # reference CPU path is f64 (CalcSol.py), its GPU path f32
@@ -325,8 +322,6 @@ class Params:
                          'min_ndays', 'kernel_rad', 'kernel_rad_local',
                          'quad_nodes'):
                 setattr(self, arg, i(val))
-            elif arg == 'use_pallas':
-                self.use_pallas = self._parse_bool(val)
             elif arg == 'use_f64':
                 self.use_f64 = self._parse_bool(val)
             elif arg == 'ref_trunc':

@@ -76,26 +76,9 @@ def setup_forward(params: Params, dtype=None) -> ForwardSetup:
          else _auto_half_width(params.Dparams, cell))
     Kl = (params.kernel_rad_local if params.kernel_rad_local is not None
           else _auto_half_width(params.Dlparams, cell, lo=3))
-    # the fused Pallas accumulate is the TPU hot path (validated on a real
-    # v5e chip: matches the XLA scatter path to 2e-7, ~8x faster); elsewhere
-    # (CPU tests, virtual multi-chip dry runs) the XLA scatter path is used.
-    from ..ops.pallas_kernel import pallas_available
-    on_tpu = pallas_available()
-    if dtype == jnp.float64:
-        # the Mosaic kernel is f32-only (Pallas TPU tiling/SMEM layout);
-        # f64 validation mode always takes the XLA scatter path
-        use_pallas = False
-    elif getattr(params, 'use_pallas', None) is not None:
-        use_pallas = params.use_pallas
-    else:
-        use_pallas = on_tpu
-    # a user-forced Pallas path off-TPU (use_pallas=True on a CPU host)
-    # runs in interpret mode — slow, but functional for development
-    interpret = bool(use_pallas) and not on_tpu
     kcfg = KernelConfig(rad_res=int(rad_res), periods=T,
                         K=int(K), K_local=int(Kl),
-                        G=params.quad_nodes, pallas=bool(use_pallas),
-                        interpret=interpret,
+                        G=params.quad_nodes,
                         ref_trunc=bool(getattr(params, 'ref_trunc', False)))
     scfg = SolverConfig.for_domain(int(rad_res))
     if (not params.PROB_MODEL) and params.r_start is not None:

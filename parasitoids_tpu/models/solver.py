@@ -1,11 +1,11 @@
 """Multi-day FFT-convolution propagation (L3).
 
-TPU-native replacement for the reference's convolution solvers — the scipy
-FFTPACK CPU path (CalcSol.py) and the Reikna/PyCUDA GPU path (cuda_lib.py).
-Design departures, deliberate and TPU-idiomatic:
+Accelerator replacement for the reference's convolution solvers — the
+scipy FFTPACK CPU path (CalcSol.py) and the Reikna/PyCUDA GPU path
+(cuda_lib.py).  Design departures, deliberate:
 
-* density fields stay **dense in HBM** end to end (an 801² f32 field is
-  ~2.6 MB); the reference's COO/CSR sparse bookkeeping disappears,
+* density fields stay **dense in device memory** end to end (an 801² f32
+  field is ~2.6 MB); the reference's COO/CSR sparse bookkeeping disappears,
 * all transforms are **real** FFTs (`rfft2`/`irfft2`) — fields and kernels
   are real, so the Hermitian half-spectrum halves both FLOPs and memory
   versus the reference's complex FFTs (scipy fftpack / Reikna complex64),
@@ -24,9 +24,8 @@ Design departures, deliberate and TPU-idiomatic:
   does this lazily — it detects pad-region mass and re-FFTs only then (the
   ``bndry_flag``, CalcSol.py:28-41,199-201, re-injecting the *truncated,
   un-thresholded* field) — but on the headline workloads the flag fires
-  every single day (measured on Kalbar: 17/17 days at population scale), and
-  a `lax.cond` in a TPU scan costs more than the re-FFT it tries to avoid
-  (both branches are materialized).  Unconditional daily absorption is the
+  every single day (measured on Kalbar: 17/17 days at population scale), so
+  a `lax.cond` would skip nothing.  Unconditional daily absorption is the
   same physics, branch-free, and strictly enforces the boundary,
 * kernels are corner-shifted ("fftshift by hand", CalcSol.py:56-64) with a
   single ``jnp.roll`` on the padded array.
@@ -57,12 +56,9 @@ __all__ = ['SolverConfig', 'signal_fft', 'filter_fft', 'fft_conv_once',
 
 
 def next_fast_len(n: int) -> int:
-    """Smallest integer >= n of the form 2^k, 3*2^k or 5*2^k.
-
-    XLA's TPU FFT is strongly radix-2: measured on v5e at ~1.2-2k points,
-    mostly-power-of-two sizes run 2-5x faster *per point* than general
-    5-smooth sizes (1280 = 2^8*5: 21.5 ms for the 18-day chain vs
-    1215 = 3^5*5: 98.7 ms), so only one odd factor (3 or 5) is allowed."""
+    """Smallest integer >= n of the form 2^k, 3*2^k or 5*2^k: FFT sizes
+    with at most one odd factor (3 or 5).  Whether the GPU's FFT would
+    rather take general 5-smooth sizes is not measured yet."""
     best = 1 << (n - 1).bit_length()
     for odd in (3, 5):
         p = odd

@@ -38,8 +38,7 @@ four-corner differences.  Properties that make this the right scheme here:
 
 The previous scheme — conditional decomposition with probability-space
 Gauss–Legendre quadrature through the x marginal — is kept as
-:func:`bvn_cell_masses_quad` (it is the form used inside the fused Pallas
-kernel, ops/pallas_kernel.py, and a useful independent cross-check).
+:func:`bvn_cell_masses_quad` (a useful independent cross-check).
 
 Everything is differentiable (saturating branches double-``where``
 guarded), so the whole forward model admits gradient-based MAP/NUTS.
@@ -331,8 +330,7 @@ def bvn_cell_masses_batched(mu, sig_x, sig_y, rho, cell, K, G=None):
 @partial(jax.jit, static_argnames=('K', 'G'))
 def bvn_cell_masses_quad(mu, sig_x, sig_y, rho, cell, K, G=16):
     """Conditional-decomposition scheme (the previous default; kept as an
-    independent cross-check and as the form used by the fused Pallas
-    kernel):
+    independent cross-check):
 
         mass(i, j) = ∫_{x in col_j} φ_{μx,σx}(x) ·
                      [Φ((y_hi(i) − m(x))/s) − Φ((y_lo(i) − m(x))/s)] dx
@@ -382,8 +380,8 @@ def bvn_cell_masses_quad(mu, sig_x, sig_y, rho, cell, K, G=16):
     d_phi = cdf[..., :-1] - cdf[..., 1:]                      # (n, G, n) cols,G,rows
 
     # mass(i, j) = sum_g half_j * w_g * d_phi[j, g, i]
-    # HIGHEST precision: JAX's default contraction precision truncates f32
-    # inputs to bf16 on TPU (and mirrors that on CPU), costing ~1e-3
-    # relative error; these contractions are tiny, so full f32 is free.
+    # HIGHEST precision: the default contraction precision may truncate
+    # f32 inputs (TF32 on a GPU), costing ~1e-3 relative error; these
+    # contractions are tiny, so full f32 is free.
     return jnp.einsum('j,jgi,g->ij', half, d_phi, w,
                       precision=jax.lax.Precision.HIGHEST)

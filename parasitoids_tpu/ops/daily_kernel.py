@@ -1,6 +1,6 @@
 """Daily dispersal-kernel builder (L2 hot path).
 
-TPU-native replacement for the reference's ``prob_mass``
+Accelerator replacement for the reference's ``prob_mass``
 (ParasitoidModel.py:384-613).  The reference loops 1,440 flight minutes in
 Python, calling a Fortran integrator with an adaptive window per minute and
 scatter-adding variable-size blocks into a sparse host array.  Here the whole
@@ -11,7 +11,7 @@ day is one jitted, fixed-shape program:
   three-way in-day / next-day-wrap / last-day-extrapolation branching
   (ParasitoidModel.py:439-460) with identical semantics,
 * per-minute kernels are built densely on a static ``(2K+1)²`` window by the
-  closed-form BVN integrator under ``vmap`` (chunked to bound VMEM/HBM),
+  closed-form BVN integrator under ``vmap`` (chunked to bound memory),
 * accumulation into the domain is a single windowed ``lax.scatter_add`` with
   CLIP index mode onto a K-cell padded buffer: blocks straddling the domain
   edge are clipped cell-exactly and clipped mass is accounted as ``loss``,
@@ -57,8 +57,6 @@ class KernelConfig(NamedTuple):
     K_local: int          # local-diffusion window half-width (cells)
     G: int = 16           # quadrature nodes per cell column
     chunk: int = 240      # minutes per accumulation chunk (bounds memory)
-    pallas: bool = False       # fused Pallas accumulate (TPU hot path)
-    interpret: bool = False    # Pallas interpret mode (tests off-TPU)
     # emulate the reference's adaptive ring-expansion stopping rule
     # (cdf_eps=0.001, ParasitoidModel.py:329,348): truncate every
     # per-minute block (and the local-diffusion kernel) to the smallest
@@ -66,13 +64,11 @@ class KernelConfig(NamedTuple):
     # stay-local remainder exactly as the reference's accounting does.
     # A PARITY TOOL (closes the e2e residual attribution loop, PARITY.md)
     # — not for production runs, where the full window is strictly more
-    # accurate.  XLA path only (forces the scatter accumulate).
+    # accurate.
     ref_trunc: bool = False
     # ensemble-batched BVN scheme (ops/bvn.bvn_cell_masses_batched): the
     # fixed-G two-branch select that a particle-vmap needs to avoid
-    # executing all four rho lax.switch branches (VERDICT r4 item 4).
-    # XLA path only (forces the scatter accumulate; the Pallas kernel has
-    # its own lax.cond dispatch that a vmap would pay both sides of).
+    # executing all four rho lax.switch branches.
     batched_bvn: bool = False
 
 
@@ -146,13 +142,11 @@ def _advection_means(wind_flat, wind_cumsum, day_idx, n_periods, periods,
 def xla_accumulate_day(h_scat, cdf_mu, idx, clipped, Dparams, cell,
                        K: int, G: int, buf_len: int, chunk: int = 240,
                        ref_trunc: bool = False, batched_bvn: bool = False):
-    """Accumulate all per-minute BVN blocks of one day (XLA path): chunked
-    ``vmap`` block build + ``lax.scatter_add`` with CLIP mode.  Same
-    contract as ``ops.pallas_kernel.pallas_accumulate_day`` (whose backward
-    is a dedicated Pallas kernel, ``_day_bwd_kernel`` — this XLA path is
-    the numerical oracle both are tested against): returns the
-    (buf_len, buf_len) buffer and the clipped-block truncation loss
-    sum_t clip_t h_t (1 - bsum_t)."""
+    """Accumulate all per-minute BVN blocks of one day: chunked ``vmap``
+    block build + ``lax.scatter_add`` with CLIP mode (on a GPU, XLA
+    lowers the scatter to atomic adds, so the order of the sums changes
+    from run to run).  Returns the (buf_len, buf_len) buffer and the
+    clipped-block truncation loss sum_t clip_t h_t (1 - bsum_t)."""
     dtype = h_scat.dtype
     T = h_scat.shape[0]
     sig_x, sig_y, rho = Dparams
@@ -324,24 +318,11 @@ def build_daily_kernel(wind_flat, wind_cumsum, day_idx, hparams, Dparams,
         wind_flat, wind_cumsum, day_idx, hparams, mu_r, n_periods,
         start_idx, config, rad_dist)
 
-    batched = getattr(config, 'batched_bvn', False)
-    if config.pallas and not config.ref_trunc and not batched:
-        # fused on-chip build+accumulate (ops/pallas_kernel.py); its
-        # backward rule is a dedicated Pallas kernel (_day_bwd_kernel),
-        # gradient-parity-tested against the XLA path below
-        from .pallas_kernel import pallas_accumulate_day
-        buf, clip_loss = pallas_accumulate_day(
-            h_scat, cdf_mu, idx, clip_f, Dparams, cell,
-            K, G, D + 4 * K, config.interpret)
-    else:
-        # ref_trunc (the cdf_eps parity-emulation mode) and batched_bvn
-        # (the ensemble-vmap mode) always take the XLA scatter path —
-        # truncation is a per-block mask on top of the vmapped block
-        # build; the batched select replaces the rho lax.switch
-        buf, clip_loss = xla_accumulate_day(
-            h_scat, cdf_mu, idx, clip_f, Dparams, cell,
-            K, G, D + 4 * K, chunk=min(config.chunk, T),
-            ref_trunc=config.ref_trunc, batched_bvn=batched)
+    buf, clip_loss = xla_accumulate_day(
+        h_scat, cdf_mu, idx, clip_f, Dparams, cell,
+        K, G, D + 4 * K, chunk=min(config.chunk, T),
+        ref_trunc=config.ref_trunc,
+        batched_bvn=getattr(config, 'batched_bvn', False))
 
     return finish_day(buf, outside_loss, clip_loss, Dlparams, config,
                       rad_dist)

@@ -84,10 +84,9 @@ def shard_chain_states(states, mesh):
 # Per-device, chains advance through ``lax.map`` (sequential), NOT ``vmap``:
 # a chain-batched forward pass batches the BVN integrator's rho-dependent
 # ``lax.switch``, and a batched-predicate switch lowers to executing EVERY
-# branch with a select — measured 33x slower per chain than the scalar-rho
-# program.  Sequential chains per device cost exactly N x single-chain;
-# cross-device parallelism comes from ``shard_map`` over the mesh (each
-# device runs its local chains unbatched).
+# branch with a select.  Sequential chains per device cost exactly N x
+# single-chain; cross-device parallelism comes from ``shard_map`` over the
+# mesh (each device runs its local chains unbatched).
 
 
 @partial(jax.jit, static_argnames=('setup', 'cfg'))

@@ -10,11 +10,10 @@ The axis that shards is the kernel builder's flight-minute loop: the
 1,440 per-minute BVN blocks of each day (`ops/daily_kernel.py`) are
 independent until the scatter-accumulate, so each device builds its minute
 shard into a local padded buffer and one `lax.psum` over the mesh merges
-them — the classic partial-sum tensor-parallel pattern, riding ICI.  The
-cheap per-minute precompute and the FFT propagation phase stay replicated
-(at the full Bayes config the FFT phase is HBM-bound and already near
-roofline on one chip; replicating it costs no extra wall-clock, and the
-kernel phase — the majority of fwd+grad time — divides by the mesh size).
+them — the classic partial-sum tensor-parallel pattern over the
+card-to-card links.  The cheap per-minute precompute and the FFT
+propagation phase stay replicated (replicating it costs no extra
+wall-clock, and the kernel phase divides by the mesh size).
 
 The reference has no counterpart: its only intra-simulation parallelism is
 a `multiprocessing.Pool` over *days* (Run.py:412-429), which cannot help a
@@ -67,15 +66,9 @@ def _sharded_accumulate(mesh, h_scat, cdf_mu, idx, clip_f, Dparams, cell,
     t_local = (T + pad) // n_dev
 
     def local(h, mu, ix, cl, Dp):
-        if config.pallas:
-            from ..ops.pallas_kernel import pallas_accumulate_day
-            buf, loss = pallas_accumulate_day(
-                h, mu, ix, cl, Dp, cell, config.K, config.G, buf_len,
-                config.interpret)
-        else:
-            buf, loss = xla_accumulate_day(
-                h, mu, ix, cl, Dp, cell, config.K, config.G, buf_len,
-                chunk=min(config.chunk, t_local))
+        buf, loss = xla_accumulate_day(
+            h, mu, ix, cl, Dp, cell, config.K, config.G, buf_len,
+            chunk=min(config.chunk, t_local))
         return lax.psum(buf, _AXIS), lax.psum(loss, _AXIS)
 
     f = shard_map(local, mesh=mesh,

@@ -1,17 +1,15 @@
 """Library-level durable artifact persistence (VERDICT r3 item 7).
 
-The hosted VMs this framework's long evidence chains run on are recycled
-without warning, and a recycle erases everything gitignored — round 3 lost
-a completed Carnarvon PT trace and ~19 SBC replicates this way.  The
-round-3 mitigation lived in shell scripts (``scripts/r3_tpu_chain8.sh
-commit_artifacts``); this module moves the commit-on-landing rule into the
-library itself so every checkpoint/trace writer (bayes/run.py, bayes/sbc.py)
-can make its artifacts durable the moment they land, without a wrapper
-script.
+Machines that run long evidence chains can be recycled without warning,
+and a recycle erases everything gitignored — a completed Carnarvon PT
+trace and ~19 SBC replicates were once lost this way.  This module puts
+the commit-on-landing rule into the library itself so every
+checkpoint/trace writer (bayes/run.py, bayes/sbc.py) can make its
+artifacts durable the moment they land, without a wrapper script.
 
 Durability = a git commit: ``commit_artifacts`` force-adds the given paths
 (they are typically gitignored run artifacts) and commits, serialized
-against concurrent writers via the same flock the chain scripts use.  It is
+against concurrent writers via a flock on the repository.  It is
 **off by default** (tests and ad-hoc runs must not spam the repo history)
 and enabled by ``PARA_GIT_COMMIT=1`` in the environment; failures are
 reported, never raised — losing durability must not kill a multi-hour
@@ -40,7 +38,7 @@ def commit_artifacts(paths, message, cwd=None, force=True, timeout=120):
     """Force-add ``paths`` (those that exist) and commit with ``message``.
 
     No-op (returns False) unless ``durability_enabled()``.  Serialized on
-    the chain scripts' flock so a background chain and an interactive
+    a repository flock so a background chain and an interactive
     session never interleave index operations.  Returns True on a commit,
     False otherwise; never raises.
     """

@@ -1,16 +1,15 @@
-"""Head-to-head: sequential (lax.map + Pallas/switch-BVN) vs batched
-(vmap + select-BVN XLA) particle rejuvenation — VERDICT r4 item 4.
+"""Head-to-head: sequential (lax.map + switch-BVN) vs batched
+(vmap + select-BVN) particle rejuvenation.
 
 The SMC anneal advances N particles with ``n_moves`` AM transitions per
 stage.  The incumbent executes particles sequentially under ``lax.map``
-with the scalar-rho program (Pallas fused accumulate on TPU); the
-challenger vmaps the whole move program over particles with the fixed-G
-select BVN scheme (ops/bvn.bvn_cell_masses_batched) and the XLA scatter
-accumulate.  This script times both at the synthetic-Carnarvon SMC config
-(401^2 x 30 days — the round-5 flagship workload) and prints per-particle
-move costs and the stage-throughput ratio.  Adoption rule (VERDICT): >= 2x
-stage-throughput -> flip PARA_SMC_BATCHED on; otherwise commit the
-negative result with these numbers.
+with the scalar-rho program; the challenger vmaps the whole move program
+over particles with the fixed-G select BVN scheme
+(ops/bvn.bvn_cell_masses_batched).  This script times both at the
+synthetic-Carnarvon SMC config (401^2 x 30 days — the round-5 flagship
+workload) and prints per-particle move costs and the stage-throughput
+ratio.  Adoption rule: >= 2x stage-throughput -> flip PARA_SMC_BATCHED
+on; otherwise commit the negative result with these numbers.
 
 Usage: python scripts/measure_batched_ensemble.py [P ...]  (default 32 64)
 """
@@ -67,7 +66,7 @@ def main():
         init_s = time.time() - t0
         row = {'init_s': round(init_s, 2)}
 
-        # incumbent: lax.map, scalar-rho (Pallas on TPU)
+        # incumbent: lax.map, scalar-rho
         t0 = time.time()
         move_seq = _move_prog(setup, n_moves, 0.05, None, 1, False)
         try:

@@ -17,10 +17,6 @@ os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
-from parasitoids_tpu.utils.cache import pin_platform_from_env
-
-pin_platform_from_env()
-
 from parasitoids_tpu.io.save import save_run
 from parasitoids_tpu.models.forward import simulate
 from tests.test_golden import GOLDEN, _run_config

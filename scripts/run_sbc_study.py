@@ -8,7 +8,7 @@ rank-uniformity results (chi-square + randomized-PIT KS p-values) to
 machine-readable summary JSON that docs/SBC.md quotes.
 
 Usage:  python scripts/run_sbc_study.py [--replicates 100] [--sampler both]
-(TPU strongly recommended; the AM study takes minutes, NUTS ~1-2 h.)
+(Run it on a GPU: at this size the CPU takes hours per arm.)
 """
 
 import argparse

@@ -14,7 +14,7 @@
 # Exit code: number of failing files (0 = green).
 set -u
 cd "$(dirname "$0")/.."
-export JAX_PLATFORMS=${PARA_TPU_TEST_PLATFORM:-cpu}
+export JAX_PLATFORMS=${JAX_PLATFORMS:-cpu}
 
 FILES=$(grep -rln "pytest.mark.slow\|pytestmark = pytest.mark.slow" tests/test_*.py | sort)
 fails=0

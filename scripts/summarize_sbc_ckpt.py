@@ -3,9 +3,8 @@
 ``run_sbc`` checkpoints (ranks, truths, done) after every replicate; this
 derives the same chi-square / KS uniformity block ``run_sbc_study`` writes
 at arm completion, from whatever is done so far, and merges it into the
-study's summary.json marked ``"partial": true``.  Used by the TPU chain
-scripts between bounded invocations so an arm killed mid-run still leaves
-recorded, up-to-date evidence.
+study's summary.json marked ``"partial": true``, so an arm killed mid-run
+still leaves recorded, up-to-date evidence.
 
 Usage: python scripts/summarize_sbc_ckpt.py <ckpt.npz> <sampler> [outdir]
 e.g.   python scripts/summarize_sbc_ckpt.py sbc_study/sbc_nuts.ckpt.npz \
@@ -32,8 +31,7 @@ def main():
     if not os.path.exists(ckpt):
         # a COMPLETED arm deletes its checkpoint after run_sbc_study writes
         # the final ranks npz + summary block — that is success, not an
-        # error (round-2 chain crashed here: chain4_status.log
-        # FileNotFoundError)
+        # error (a FileNotFoundError here once crashed a study run)
         final = os.path.join(outdir, 'sbc_{}_ranks.npz'.format(name))
         if os.path.exists(final):
             print('no checkpoint at {} but final ranks exist at {} — arm '

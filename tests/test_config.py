@@ -178,7 +178,5 @@ def test_bool_parse_strict():
     assert p.PLOT is False
     p.chg_param('use_f64', 'on')
     assert p.use_f64 is True
-    p.chg_param('use_pallas', 'False')
-    assert p.use_pallas is False
     with pytest.raises(ValueError):
         p.chg_param('output', 'nope')

@@ -119,10 +119,9 @@ def test_forward_mesh_bayes_integration():
     The projection fields must agree to fp tolerance.  Log-likelihood
     values are NOT asserted equal everywhere: observed cells whose modeled
     rate sits at the 1e-8 sparsity threshold can flip across it under any
-    float-reordering (the same holds for the Pallas vs XLA accumulate
-    paths), each flip moving that term by the ~-27.6/count floor penalty
-    (model.py ``poisson_logpmf``).  Away from the floor regime the terms
-    must agree tightly."""
+    float-reordering, each flip moving that term by the ~-27.6/count floor
+    penalty (model.py ``poisson_logpmf``).  Away from the floor regime the
+    terms must agree tightly."""
     from parasitoids_tpu.bayes.model import BayesSetup
     from parasitoids_tpu.bayes.priors import (initial_model_params,
                                               initial_obs_params)
@@ -163,20 +162,3 @@ def test_forward_mesh_bayes_integration():
     lp_a = float(setup.log_posterior(m, o))
     lp_b = float(sharded.log_posterior(m, o))
     assert np.isfinite(lp_a) and np.isfinite(lp_b)
-
-
-def test_sharded_pallas_interpret_matches(fsetup):
-    """The minute-sharded builder must run the Pallas accumulate per shard
-    (interpret mode off-TPU) and agree with the single-device Pallas path."""
-    p = _small_params()
-    hp, Dp, Dlp, mu_r, n_per = _theta(p)
-    kcfg = fsetup.kcfg._replace(pallas=True, interpret=True)
-    mesh = minute_mesh(n_devices=4)
-
-    ref, _ = build_all_kernels(
-        fsetup.wind_flat, fsetup.wind_cumsum, hp, Dp, Dlp, mu_r, n_per,
-        fsetup.rad_dist, fsetup.start_idx, kcfg, fsetup.ndays)
-    got, _ = build_all_kernels_sharded(
-        mesh, fsetup.wind_flat, fsetup.wind_cumsum, hp, Dp, Dlp, mu_r,
-        n_per, fsetup.rad_dist, fsetup.start_idx, kcfg, fsetup.ndays)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-6)

@@ -7,7 +7,7 @@ build (tiny Kalbar config: 4 days, 201x201 @ 40 m) and guard against silent
 numerical drift in the kernel builder + solver + persistence stack.
 
 Tolerances allow f32 transcendental/FFT differences across backends
-(CPU vs TPU) but catch real regressions (both absolute and mass-weighted).
+(CPU vs GPU) but catch real regressions (both absolute and mass-weighted).
 """
 
 import os

@@ -29,8 +29,7 @@ def _random_kernel(D, support):
 
 
 def test_next_fast_len():
-    # sizes are 2^k, 3*2^k or 5*2^k — at most one odd factor; XLA's TPU FFT
-    # is strongly radix-2 (see next_fast_len docstring for v5e measurements)
+    # sizes are 2^k, 3*2^k or 5*2^k — at most one odd factor
     for n, want in [(5, 5), (7, 8), (17, 20), (801, 1024), (1201, 1280),
                     (1601, 2048)]:
         got = next_fast_len(n)

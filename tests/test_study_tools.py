@@ -50,7 +50,7 @@ def test_summarizer_writes_partial_block(tmp_path):
 def test_summarizer_completed_and_cleaned_arm_is_success(tmp_path):
     """A completed arm deletes its checkpoint AFTER writing the final ranks
     npz — the summarizer must treat that as success (the exact state that
-    crashed the round-2 chain, chain4_status.log FileNotFoundError)."""
+    once crashed a study run with a FileNotFoundError)."""
     np.savez(tmp_path / 'sbc_am_ranks.npz', ranks=np.zeros((100, 4)),
              L=20, truths=np.zeros((100, 4)),
              names=np.asarray(['a', 'b', 'c', 'd']))
